@@ -1,6 +1,6 @@
-"""dbgtpu — TPU-native de Bruijn graph read mapper.
+"""dbgtpu — de Bruijn graph read mapper in JAX, run on a GPU.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of BGREAT
+A from-scratch JAX/XLA re-design of the capabilities of BGREAT
 (Malfoy/BGREAT, C++): mapping short reads onto a compacted de Bruijn
 graph given as a unitig FASTA (BCALM2 style), reporting each read as a
 path of signed unitig IDs.
@@ -19,7 +19,8 @@ Architecture (nothing here is a translation of the C++):
     short-circuit + strict-minimum update),
   - scaling is data-parallel over reads via `shard_map` on a device
     Mesh, with `psum` for statistics; the index is replicated (it is
-    read-only, like the reference's shared-memory index).
+    read-only, like the reference's shared-memory index) or, with
+    --shard-index, bucket-range-sharded over the mesh.
 """
 
 __version__ = "0.1.0"

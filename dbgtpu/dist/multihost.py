@@ -3,9 +3,13 @@
 The reference is a single pthread process; dbgtpu's multi-host story is
 the JAX collective stack:
 
-  - `init_distributed()` wraps jax.distributed.initialize — one process
-    per host, a global mesh over every chip of the slice/pod; ICI
-    carries intra-slice collectives, DCN carries cross-slice,
+  - one process per card: `bind_local_card` restricts process i to
+    local card i before JAX opens any device (a JAX process reserves
+    most of every card it opens, so a second process on the same card
+    would fail for want of memory),
+  - `init_distributed()` wraps jax.distributed.initialize for runs
+    that reduce statistics across processes; the cards of a host are
+    joined all to all (NVLink), so no mesh shape follows the wiring,
   - input sharding: each host maps a deterministic subset of the read
     files (`shard_files`), or byte-ranges of one big file
     (`shard_ranges`) — reads are embarrassingly parallel, so hosts
@@ -30,6 +34,19 @@ from __future__ import annotations
 
 import os
 from typing import List, Sequence, Tuple
+
+
+def bind_local_card(process_id: int) -> None:
+    """Let this process see only local card `process_id`.
+
+    A launcher that sets CUDA_VISIBLE_DEVICES has already chosen the
+    card, and this sets nothing.  Must run before JAX opens a device;
+    other platforms ignore the setting."""
+    if "CUDA_VISIBLE_DEVICES" in os.environ:
+        return
+    import jax
+
+    jax.config.update("jax_cuda_visible_devices", str(process_id))
 
 
 def init_distributed(
@@ -60,7 +77,7 @@ def init_distributed(
 
 def global_stats_sum(local):
     """Sum a per-process int64 stats vector across every process of a
-    jax.distributed run (the TPU-native replacement for the reference's
+    jax.distributed run (the replacement for the reference's
     shared-memory atomic counters, aligner.h:68): gathered over the
     global device mesh, summed on host.  Identity when single-process.
     """

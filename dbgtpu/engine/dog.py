@@ -7,7 +7,7 @@ SAME batched walk machine as greedy mode (reference
 alignReadGreedyAnchors, alignerGreedy.cpp:60-164; semantics mirrored
 from dbgtpu.anchors, the executable spec).
 
-TPU-first shape: instead of the reference's per-anchor case-split
+Vectorized shape: instead of the reference's per-anchor case-split
 recursion, ALL placement cases for ALL anchors of ALL reads are
 computed in one vectorized [B, E] precomputation (`_dog_inits`) that
 emits per-anchor initial walk states for `_run_walks`:
@@ -196,8 +196,8 @@ def align_batch_anchors(
     # docstring) + canonical anchor lookup at every position.  The
     # lookup is chunked over the position axis (lax.map): a direct
     # [B, Lk] row gather materializes a [B, Lk, 5*S] temp — ~1.7 GB at
-    # B=32k with the 160-col fused rows, which OOMs HBM next to a
-    # large-graph anchor table (same fix as core._st_member_positions).
+    # B=32k with the 160-col fused rows, too large to sit next to a
+    # large-graph anchor table in device memory (same fix as core._st_member_positions).
     fhi, flo = _scan_kmer_pairs_words(rwf, L, k)
     rhi, rlo = rcb_pair(fhi, flo, k)
     le_f = pair_le(fhi, flo, rhi, rlo)

@@ -8,7 +8,7 @@ aligner.cpp:318-342); no reverse-complement retry.  Semantics are
 defined by dbgtpu.exhaustive (the executable spec, itself
 stats-parity-tested against the reference binary).
 
-TPU-first shape — recursion becomes an explicit per-read stack inside
+Vectorized shape — recursion becomes an explicit per-read stack inside
 one lockstep `lax.while_loop`:
 
   - the TOP stack frame lives in registers ([B] / [B, 4] state vars):

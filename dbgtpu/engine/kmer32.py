@@ -1,7 +1,7 @@
 """K-mer arithmetic on (hi, lo) uint32 pairs.
 
-TPUs have no native 64-bit integer ALU, so kmers (up to 64 bits at
-k=32) are carried as two uint32 lanes.  All functions are written with
+The engine runs without 64-bit integers (JAX's default 32-bit mode),
+so kmers (up to 64 bits at k=32) are carried as two uint32 lanes.  All functions are written with
 plain operators so they work on BOTH numpy arrays (host index build)
 and jnp arrays (device kernels) with identical wrap-around semantics.
 

@@ -40,7 +40,7 @@ class AnchorView:
 
     At 1M-unitig scale the pool holds ~10^8 k-mers; the former
     `dict(zip(...))` build was minutes of single-threaded python and
-    GBs of dict overhead (VERDICT r4), where the sorted key array +
+    GBs of dict overhead, where the sorted key array +
     searchsorted view costs one vectorized argsort and 12 bytes/key."""
 
     __slots__ = ("keys", "vals", "ucanon")

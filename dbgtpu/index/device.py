@@ -35,8 +35,8 @@ class HashTable:
 
     A key lives in slot s of bucket h1(key) or h2(key); a device lookup
     is exactly TWO 4-slot bucket gathers + key compares (vs 13+ probes
-    of the former linear-probe layout — lookups are gather-throughput
-    bound on TPU, SURVEY.md §7.3).  Empty slots hold all-ones keys
+    of the former linear-probe layout; lookups are gather-bound,
+    SURVEY.md §7.3).  Empty slots hold all-ones keys
     (keys are canonical <=62-bit k-mers, so all-ones never collides).
     """
 
@@ -123,13 +123,13 @@ ST_TARGET_LOAD = max(2, (ST_SLOTS * 3) // 8)  # keys/bucket sizing aim
 
 @dataclass
 class ScanTable:
-    """Single-hash fat-bucket table (TPU fast path).
+    """Single-hash fat-bucket table (the row-gather layout).
 
-    A TPU gather of ROWS ([B] indices into an [N, W] table) runs ~100x
-    faster per element than element/point gathers — and is rate-bound
-    by row COUNT, not row width — so the fast path wants membership
-    AND lookup to each be ONE row gather into as few, as dense rows as
-    possible.  Each bucket row packs ST_SLOTS=32 slot keys as 64
+    Membership AND lookup are each ONE row gather ([B] indices into an
+    [N, W] table) into as few, as dense rows as possible, in place of
+    several element/point gathers.  The layout was chosen where row
+    gathers were rate-bound by row COUNT, not width; whether that holds
+    on a GPU is for a benchmark cell to show.  Each bucket row packs ST_SLOTS=32 slot keys as 64
     uint32 lanes (cols 0:32 key-hi, 32:64 key-lo), sized for
     ~ST_TARGET_LOAD keys/bucket (~2.7x denser than the former 8-slot
     near-empty layout — the junction table of a 1M-unitig graph drops
@@ -220,9 +220,8 @@ class ProbeTable:
 
     The anchor scan must test `canonical((k-1)-mer) ∈ S` (S = junction
     key set) at EVERY read position (reference getNOverlap,
-    aligner.cpp:345-378); on TPU each test is a serial row gather and
-    gathers are rate-bound (~60-80M rows/s regardless of width), so a
-    per-position probe dominates the whole mapping runtime.  This table
+    aligner.cpp:345-378); each test is a row gather, so a per-position
+    probe dominates the whole mapping runtime.  This table
     answers membership for `window` consecutive positions per gather:
 
       probe the canonical kmer x_p at position p; its bucket slot
@@ -236,10 +235,9 @@ class ProbeTable:
       related, so b/c/cc are read directly from the read's base codes.)
 
     window 4: keyset = canon(S ∪ succ(S±) ∪ succ²(S±)) ≈ 21·|S±|.
-    Rows hold PT_SLOTS=32 slots each, sized for ~12 keys/bucket (TPU
-    row gathers are rate-bound by row COUNT, not width, so fat buckets
-    cost nothing on device while cutting HBM ~4x vs the former 8-slot
-    near-empty layout).  Row [nb, 128] uint32 — cols 0:32 ~key-hi
+    Rows hold PT_SLOTS=32 slots each, sized for ~12 keys/bucket (fat
+    buckets cut device memory ~4x vs the former 8-slot near-empty
+    layout).  Row [nb, 128] uint32 — cols 0:32 ~key-hi
     (INVERTED so empty slots are natural zeros: key-hi < 2^30 for
     k <= 32, hence a stored ~hi is never 0 and a query's ~hi never
     matches an untouched slot — rows come from a lazily-zeroed
@@ -253,8 +251,8 @@ class ProbeTable:
     are [nb, 96].  The engine derives the window from the row width.
 
     A probe that misses proves all `window` positions are non-members;
-    this trades one-time host build + HBM for a `window`-fold cut in
-    serial scan gathers — the TPU-first inversion of the reference's
+    this trades one-time host build + device memory for a `window`-fold
+    cut in scan gathers — the batched inversion of the reference's
     per-position MPHF loop.
     """
 
@@ -264,13 +262,12 @@ class ProbeTable:
     window: int = 4
 
 
-# probe-table slots per bucket row (env-tunable for A/Bs).  Measured
-# r5 (same-session pair, scripts/exp_r5_member.py pair): fewer slots
-# would cut the member stage's slot-compare VPU work, but the max-
+# probe-table slots per bucket row (env-tunable for A/Bs).  Fewer
+# slots would cut the member stage's slot-compare work, but the max-
 # bucket<=S build constraint then blows the bucket count up (12 MB ->
-# 48 MB at 8 slots on the survey keyset) and the bigger table slows
-# the gather half more than the compare half saves — 32 dense slots
-# win (member 6.5 ms vs 10.6 ms).
+# 48 MB at 8 slots on the survey keyset), so the table is bigger to
+# gather from.  32 was the faster choice on the earlier machine; it is
+# not yet measured on a GPU.
 PT_SLOTS = int(os.environ.get("DBGTPU_PT_SLOTS", 32))
 PT_TARGET_LOAD = max(2, (PT_SLOTS * 3) // 8)  # keys/bucket sizing aim
 
@@ -280,11 +277,11 @@ PT_TARGET_LOAD = max(2, (PT_SLOTS * 3) // 8)  # keys/bucket sizing aim
 # build first downgrades window 4 -> 3 (~4x fewer keys), then gives up
 # and the engine falls back to exact per-position membership probes —
 # correct, ~4x more scan gathers).  Overridable for experiments.
-# Default 1 GB: measured at 1M unitigs, a cap-filling window-4 table
-# (2 GB) buys only ~18% mapping throughput over NO probe table at all
-# (240k vs 203k reads/s — the junction-walk gathers dominate at that
-# scale), while costing 4x the build time and H2D of the window-3
-# layout this cap selects.
+# Default 1 GB: at 1M unitigs a cap-filling window-4 table (2 GB) bought
+# little mapping throughput over NO probe table at all on the earlier
+# machine (the junction-walk gathers dominate at that scale), while
+# costing 4x the build time and H2D of the window-3 layout this cap
+# selects.  Not yet re-measured on a GPU.
 PROBE_TABLE_MAX_BYTES = int(os.environ.get(
     "DBGTPU_PROBE_TABLE_MAX_BYTES", 1 << 30
 ))
@@ -321,10 +318,9 @@ def build_probe_table(
     emission lands on an existing key; tests/test_probe.py checks the
     result against a direct per-key query oracle.
 
-    `window` is normally auto-selected: 3 by default — measured (two
-    sessions, 30k and 1M graphs) to match window 4's full-step device
-    speed (the extra probes are offset by the ~5x smaller table's
-    higher row-gather rate) while costing ~5x less HBM, H2D and build
+    `window` is normally auto-selected: 3 by default — it matched
+    window 4's full-step device speed on the 30k and 1M graphs on the
+    earlier machine while costing ~5x less device memory, H2D and build
     time; window 4 opts in via DBGTPU_PROBE_WINDOW=4 (then the byte
     cap can still downgrade to 3), and any window downgrades to None
     past the cap.  The projection happens BEFORE the expansion arrays
@@ -567,8 +563,7 @@ def build_pool_rows(pool_words: np.ndarray, n_bases: int,
     Row r covers bases [128r, 128r + 128 + halo): any window of up to
     `halo` bases starting anywhere inside chunk r lies fully within row
     r, so a windowed compare is ONE row gather + an in-register shift
-    instead of a word-granular element gather (which TPUs execute
-    near-scalar).  +1 trailing word so funnel shifts can read word j+1.
+    instead of a word-granular element gather.  +1 trailing word so funnel shifts can read word j+1.
     """
     n_chunks = max(1, (n_bases + CHUNK_BASES - 1) // CHUNK_BASES)
     row_words = (CHUNK_BASES + halo_bases) // 16 + 1
@@ -621,7 +616,7 @@ class DeviceIndex:
     # compare at alignerGreedy.cpp:75-82)
     anchor_scan: ScanTable | None = None
     anchor_mphf: "MphfAnchors | None" = None  # compact large-keyset form
-    # ---- TPU fast-path layout (row-gather-only access patterns) ----
+    # ---- row-gather layout (row-gather-only access patterns) ----
     scan_tbl: ScanTable | None = None   # junction keys, 1 gather/lookup
     umeta: np.ndarray | None = None     # int32 [U+1, 16] per-unitig row
     pool_rows: np.ndarray | None = None  # uint32 [2*n_chunks, row_words]
@@ -641,8 +636,8 @@ class MphfJunction:
     """Compact MPHF-backed junction index (--index-layout mphf).
 
     The reference's index IS an MPHF (BooPHF, aligner.cpp:449-460);
-    dbgtpu's default ScanTable trades HBM (~320 B/key) for one-gather
-    lookups.  This layout is the >HBM-graph option (VERDICT r1 item 5):
+    dbgtpu's default ScanTable trades device memory (~320 B/key) for
+    one-gather lookups.  This layout is the >HBM-graph option:
     ~3 bits/key of level bitvectors (index.mphf, BBHash algorithm)
     plus a DENSE 40 B/key slot table `jrows` [n, 10] uint32 =
     (key-hi, key-lo, 8 junction ID slots) at the MPHF slot of each key
@@ -699,7 +694,7 @@ def build_mphf_junction(keys: np.ndarray, vals: np.ndarray) -> MphfJunction:
     keys = np.asarray(keys, np.uint64)
     vals = np.asarray(vals, np.int32)
     # gamma mirrors the reference's gammaFactor=10 (aligner.h:94) but
-    # is a TPU latency knob here, not just a build-speed one: the
+    # is a device latency knob here, not just a build-speed one: the
     # device lookup pays one row gather per LEVEL for every query
     # (unrolled, no early exit), so a short fat cascade beats a long
     # lean one.  gamma=16 with the cascade capped at 3 levels resolves
@@ -719,8 +714,8 @@ def build_mphf_junction(keys: np.ndarray, vals: np.ndarray) -> MphfJunction:
 
 def hbm_report(di: DeviceIndex) -> dict:
     """Per-artifact device-resident bytes of the index (what
-    engine.core.index_to_device ships to HBM), for --json-summary
-    capacity planning (VERDICT r1 item 5)."""
+    engine.core.index_to_device ships to device memory), for
+    --json-summary capacity planning."""
     if di.scan_tbl is not None:
         jbytes = int(di.scan_tbl.keys.nbytes + di.scan_tbl.vals.nbytes)
     elif di.mphf_junction is not None:
@@ -755,8 +750,8 @@ def _renumber_perm(jvals: np.ndarray, n_unitigs: int) -> np.ndarray:
     Unitigs stored in the same junction slot row are exactly the <=4
     candidates a walk step gathers together (and walk transitions move
     between row-sharing unitigs), so BFS over "shares a junction row"
-    makes graph-adjacent unitigs HBM-adjacent umeta rows — the
-    walk-gather locality lead of VERDICT r3 item 2.  Returns perm
+    makes graph-adjacent unitigs adjacent umeta rows in device memory
+    (a walk-gather locality experiment).  Returns perm
     int32 [U+1] with perm[orig] = new id (perm[0] = 0: the reference's
     1-based sentinel, aligner.cpp:408, is preserved).  Slot ORDER
     inside each row is untouched, so the engine's earliest-slot
@@ -915,12 +910,12 @@ def build_device_index(
     # trusts seq columns to cover max_ulen) and the table stays small.
     sw = (max_ulen + 15) // 16 + 1 if max_ulen else 0
     if sw:
-        # row-width cliff (measured, scripts/exp_r4_gather.py): on
-        # ~1M-row tables XLA's row gather runs ~22M rows/s below
-        # 256-byte rows and ~94M rows/s at >= 256 bytes (a different
-        # emitter takes over), and the candidate-meta gather is the
-        # single largest walk cost on big graphs — pad the seq word
-        # columns until the row reaches 64 int32 cols.  The pad columns
+        # row-width cliff: on ~1M-row tables the earlier machine's row
+        # gather ran ~4x faster at >= 256-byte rows than below (a
+        # different emitter took over), and the candidate-meta gather
+        # is the single largest walk cost on big graphs — pad the seq
+        # word columns until the row reaches 64 int32 cols.  Whether
+        # the pad pays on a GPU is not yet measured.  The pad columns
         # are zeros past each unitig's length, which the engine's
         # window masks never count.
         sw = max(sw, 24)

@@ -1,10 +1,10 @@
-"""Minimal perfect hash function (BBHash-algorithm, TPU-native layout).
+"""Minimal perfect hash function (BBHash algorithm, row-gather layout).
 
 The reference embeds BooPHF (BooPHF.h, 1217 LoC): a cascade of
 collision-free bit arrays — keys colliding at level i retry at level
 i+1; survivors after the last level land in a plain exact map.  Lookup
 is bit-test + rank.  This module reimplements that *algorithm* from its
-description with a layout designed for TPU lookup:
+description with a layout designed for batched device lookup:
 
   - host construction is vectorized numpy (bincount collision detection
     per level), not per-key loops,

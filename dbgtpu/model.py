@@ -1,7 +1,7 @@
 """Executable specification of the greedy mapper.
 
 Pure-python, one read at a time, defining the EXACT alignment semantics
-the batched TPU engine must reproduce.  Byte-parity-tested against the
+the batched device engine must reproduce.  Byte-parity-tested against the
 compiled reference binary; the JAX engine is then cross-checked against
 this module on randomized inputs.
 

@@ -1,6 +1,6 @@
 // dbgtpu native runtime: read parsing + 2-bit packing.
 //
-// TPU-native equivalent of the reference's C++ host runtime
+// dbgtpu's equivalent of the reference's C++ host runtime
 // (Aligner::getReads, aligner.cpp:46-117): parses FASTA/FASTQ with the
 // reference's acceptance rules and emits flat arrays ready for numpy /
 // device batching — 2-bit codes, N-mask, record offsets, headers.

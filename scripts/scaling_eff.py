@@ -2,8 +2,9 @@
 
 Runs the packed mapping loop on a 1-device mesh and an N-device mesh
 over the same read workload and reports reads/s + efficiency
-(rate_N / (N * rate_1)).  On real multi-chip hardware this measures
-ICI-scale data parallelism; on a CPU host it still exercises the full
+(rate_N / (N * rate_1)).  On several cards of one host (joined all to
+all by NVLink) this measures data parallelism across them; on a CPU
+host it still exercises the full
 shard_map path over virtual devices (set
 XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu)
 — the efficiency number is then about the harness, not silicon.
@@ -29,8 +30,9 @@ def main(n_devices: int | None = None, n_reads: int = 16384,
          genome_len: int = 200_000) -> dict:
     import jax
 
-    if os.environ.get("JAX_PLATFORMS"):
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
+    from dbgtpu.runtime import device_facts, enable_compile_cache
+
+    enable_compile_cache()
 
     from tests import synth
     from dbgtpu.seq import encode
@@ -80,6 +82,7 @@ def main(n_devices: int | None = None, n_reads: int = 16384,
     r1 = rate(1)
     rn = rate(ndev)
     out = {
+        "device": device_facts(),
         "n_devices": ndev,
         "reads_per_s_1": round(r1),
         "reads_per_s_n": round(rn),

@@ -1,4 +1,4 @@
-"""Index-build scalability (VERDICT r1 item 6, r2 items 2/4).
+"""Index-build scalability.
 
 The reference indexes 30k unitigs in <1 s (aligner.cpp:537-547) with a
 shared-memory pthread build; dbgtpu's vectorized numpy build must stay
@@ -12,7 +12,7 @@ within the same order at 30k and scale to million-unitig graphs:
     window-3 probe table (succ2-free keyset, [nb, 24] rows) and build
     much faster,
   - 1M unitigs (DBGTPU_SCALE_TESTS=1): the window-3 table fits the
-    default 2 GB cap (the large-graph mid-tier of VERDICT r2 item 4).
+    default 2 GB cap (the large-graph mid-tier).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""End-to-end distributed tests (SURVEY.md §2.3, VERDICT item 4):
+"""End-to-end distributed tests (SURVEY.md §2.3):
 
   - CLI `--mesh 8` sharded run produces bytes identical to the
     single-device run (shard_map path incl. on-device pack_paths),
@@ -110,7 +110,7 @@ def test_scaling_efficiency_harness():
 
 
 def test_two_process_coordinator_jax_distributed(dataset, tmp_path):
-    """SURVEY §4 item 3 / VERDICT r2 item 6: a REAL jax.distributed run
+    """SURVEY §4 item 3: a REAL jax.distributed run
     — two localhost processes, --coordinator, CPU devices.  Exercises
     init_distributed (global runtime bring-up), the cross-process
     stats reduction (global_stats_sum over the global mesh), and the

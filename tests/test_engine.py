@@ -1,6 +1,8 @@
 """Device-engine tests: unit (kmer32, hash table) + parity vs the
 executable spec and the compiled reference."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -11,6 +13,8 @@ from dbgtpu.index.device import build_device_index, build_hash_table, ht_find_ho
 from dbgtpu.pipeline import run_pipeline
 
 from . import oracle, synth
+
+DATA = Path(__file__).with_name("data")
 
 
 def test_rcb_pair_matches_numpy():
@@ -64,8 +68,8 @@ def _paths_by_engine(reads_fa, unitigs_fa, k, m, effort, tmp_path, impl,
 
 
 def test_engine_fixture_golden(tmp_path):
-    reads = open("/root/reference/reads.fa", "rb").read()
-    unitigs = open("/root/reference/unitig.fa", "rb").read()
+    reads = (DATA / "reads.fa").read_bytes()
+    unitigs = (DATA / "unitig.fa").read_bytes()
     paths, na, _ = _paths_by_engine(reads, unitigs, 4, 2, 2, tmp_path, "jax")
     assert paths == b">nomiss\n0.1.3.4.-6.\n>nomiss\n0.1.3.5.-6.\n"
     assert na == b""
@@ -122,8 +126,8 @@ def test_engine_pool_chunk_fallback_matches_embedded(tmp_path, monkeypatch):
     """The SW == 0 pool-chunk gather path (taken when unitigs exceed
     EMBED_CAP_BASES) must produce the same results as the embedded-seq
     fast path — force it by capping the embed threshold below the
-    graph's max unitig length (ADVICE r1: the fallback had no coverage
-    once every synthetic graph started using the embedded path)."""
+    graph's max unitig length (the fallback has no coverage otherwise,
+    since every synthetic graph uses the embedded path)."""
     from dbgtpu.index import device as D
 
     reads_fa, unitigs_fa = synth.make_dataset(
@@ -140,8 +144,8 @@ def test_engine_pool_chunk_fallback_matches_embedded(tmp_path, monkeypatch):
 def test_engine_mphf_layout_matches_scan(tmp_path):
     """--index-layout mphf (compact BBHash-backed junction table) must
     be byte-identical to the default one-gather scan layout across all
-    three device modes (VERDICT r1 item 5: the MPHF is the >HBM-graph
-    option, verified-key lookups, aliasing defense aligner.cpp:158-169)."""
+    three device modes (the MPHF is the >HBM-graph option,
+    verified-key lookups, aliasing defense aligner.cpp:158-169)."""
     from dbgtpu.pipeline import run_pipeline
 
     reads_fa, unitigs_fa = synth.make_dataset(

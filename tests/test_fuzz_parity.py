@@ -1,4 +1,4 @@
-"""Bulk randomized parity fuzz (VERDICT r4 item 8).
+"""Bulk randomized parity fuzz.
 
 Opt-in: set DBGTPU_FUZZ=<n_cases> (e.g. 300 for a night run; any >0
 enables).  Each case draws a random configuration — k across the

@@ -9,8 +9,9 @@ import pytest
 
 from dbgtpu.pipeline import run_pipeline
 
-FIXTURE_READS = Path("/root/reference/reads.fa")
-FIXTURE_UNITIGS = Path("/root/reference/unitig.fa")
+DATA = Path(__file__).with_name("data")
+FIXTURE_READS = DATA / "reads.fa"
+FIXTURE_UNITIGS = DATA / "unitig.fa"
 
 GOLDEN_PATHS = b">nomiss\n0.1.3.4.-6.\n>nomiss\n0.1.3.5.-6.\n"
 

@@ -15,6 +15,7 @@ Parity strategy per mode (SURVEY.md §4):
 from __future__ import annotations
 
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,8 +36,9 @@ from .oracle import reference_available, run_reference
 
 pytestmark = pytest.mark.slow  # heavy parity/scale suite (full gate)
 
-FIXTURE_READS = open("/root/reference/reads.fa", "rb").read()
-FIXTURE_UNITIGS = open("/root/reference/unitig.fa", "rb").read()
+DATA = Path(__file__).with_name("data")
+FIXTURE_READS = (DATA / "reads.fa").read_bytes()
+FIXTURE_UNITIGS = (DATA / "unitig.fa").read_bytes()
 
 _ALIGNED = (STATUS_ALIGNED_FWD, STATUS_ALIGNED_RC)
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -32,7 +34,7 @@ def _compare(path, k, fastq):
 
 
 def test_fixture_fasta(tmp_path):
-    _compare("/root/reference/reads.fa", 4, False)
+    _compare(Path(__file__).with_name("data") / "reads.fa", 4, False)
 
 
 def test_synthetic_fasta(tmp_path):
